@@ -15,28 +15,14 @@ def main(argv=None):
     parser.add_argument("--config_version_id", default="default")
     args = parser.parse_args(argv)
 
-    import numpy as np
-
     from obvi_slam_tpu.config import (
         FullOVSLAMConfig,
-        ShapeDimensionPrior,
+        default_shape_priors,
         write_config,
     )
 
     config = FullOVSLAMConfig(config_version_id=args.config_version_id)
-    # Default shape priors matching write_configuration.cpp's classes.
-    defaults = [
-        ("chair", [0.62, 0.62, 0.975], [0.05, 0.05, 0.05]),
-        ("bench", [1.0, 2.5, 1.5], [1.5, 2.0, 1.5]),
-        ("roadblock", [0.29, 0.29, 0.48], [0.001, 0.001, 0.01]),
-        ("treetrunk", [0.4, 0.4, 2.0], [0.2, 0.2, 3.0]),
-        ("lamppost", [0.3, 0.3, 4.0], [0.15, 0.15, 3.0]),
-        ("trashcan", [0.73, 0.73, 1.2], [0.15, 0.15, 0.2]),
-    ]
-    config.shape_dimension_priors = [
-        ShapeDimensionPrior(cls, np.array(mean), np.diag(np.array(std) ** 2))
-        for cls, mean, std in defaults
-    ]
+    config.shape_dimension_priors = default_shape_priors()
     write_config(config, args.config_output_file)
     print(f"wrote default config to {args.config_output_file}")
     return 0

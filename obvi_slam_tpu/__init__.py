@@ -1,8 +1,8 @@
-"""ObVi-SLAM-TPU: a TPU-native object-visual SLAM framework.
+"""ObVi-SLAM in JAX: an accelerator-native object-visual SLAM framework.
 
 A from-scratch re-design of the capabilities of ut-amrl/ObVi-SLAM
 (joint object + visual-feature sliding-window / global bundle adjustment
-with a long-term object map) built on JAX/XLA/Pallas/pjit.
+with a long-term object map) built on JAX/XLA, running on NVIDIA GPUs.
 
 Architecture (vs the reference's layer map, SURVEY.md §1):
 
@@ -23,7 +23,7 @@ Architecture (vs the reference's layer map, SURVEY.md §1):
   - ``ltm``           long-term object map extraction / priors
                       (ref: long_term_object_map_extraction.h).
   - ``parallel``      mesh sharding of global BA (factors sharded across
-                      devices, Schur blocks psum-reduced over ICI).
+                      devices, Schur blocks psum-reduced across them).
   - ``metrics``       ATE/RPE/waypoint-consistency + object metrics
                       (ref: trajectory_metrics_generator.cpp, object_evaluation_utils.h).
 """

@@ -638,6 +638,70 @@ def read_config(path: str) -> FullOVSLAMConfig:
     )
 
 
+def default_shape_priors() -> List[ShapeDimensionPrior]:
+    """Per-class ellipsoid dimension priors (mean, std per axis in metres) of
+    write_configuration.cpp's semantic classes."""
+    defaults = [
+        ("chair", [0.62, 0.62, 0.975], [0.05, 0.05, 0.05]),
+        ("bench", [1.0, 2.5, 1.5], [1.5, 2.0, 1.5]),
+        ("roadblock", [0.29, 0.29, 0.48], [0.001, 0.001, 0.01]),
+        ("treetrunk", [0.4, 0.4, 2.0], [0.2, 0.2, 3.0]),
+        ("lamppost", [0.3, 0.3, 4.0], [0.15, 0.15, 3.0]),
+        ("trashcan", [0.73, 0.73, 1.2], [0.15, 0.15, 0.2]),
+    ]
+    return [
+        ShapeDimensionPrior(cls, np.array(mean), np.diag(np.array(std) ** 2))
+        for cls, mean, std in defaults
+    ]
+
+
+def object_session_config(pgo: bool = True) -> FullOVSLAMConfig:
+    """Config for the seeded synthetic object session (``synthetic.
+    make_object_session``), built in-repo from ``FullOVSLAMConfig()``.
+
+    From the paper config (SURVEY.md §5, ``base7a_1_fallback_a_2.json``):
+    local-BA phase-one function tolerance 1e-3, global/final 1e-6.
+
+    Assumed (not in SURVEY §5), sized for a tens-of-frames synthetic session:
+      - sliding window 8 frames, global BA every 7 frames;
+      - LM iteration caps 25 (phase one) / 30 (phase two) for local, global
+        and final BA (the paper's 50 / 250 / 300 are cut for session length);
+      - PGO on global and final BA when ``pgo``; visual features on both;
+      - min observations: 10 features per frame, 3 per feature, 3 per
+        object; bb frontend min_observations 5, 3 for local estimation,
+        3 overlapping features per match; pending-object mini-BA 30 iters;
+      - every other value is the ``FullOVSLAMConfig`` dataclass default, and
+        the shape priors are ``default_shape_priors()``.
+    """
+    c = FullOVSLAMConfig(config_version_id="synthetic_object_session")
+    c.shape_dimension_priors = default_shape_priors()
+    c.sliding_window_params = SlidingWindowParams(
+        global_ba_frequency=7, local_ba_window_size=8
+    )
+    en = c.optimization_factors_enabled_params
+    en.use_pose_graph_on_global_ba = pgo
+    en.use_pose_graph_on_final_global_ba = pgo
+    en.use_visual_features_on_global_ba = True
+    en.use_visual_features_on_final_global_ba = True
+    en.min_low_level_feature_observations_per_frame = 10
+    en.min_low_level_feature_observations = 3
+    en.min_object_observations = 3
+    fe = c.feature_based_bb_association_params
+    fe.min_observations = 5
+    fe.min_observations_for_local_est = 3
+    fe.min_overlapping_features_for_match = 3.0
+    fe.pending_obj_estimator_params.solver_params.max_num_iterations = 30
+    for it, ftol in (
+        (c.local_ba_iteration_params, 1e-3),
+        (c.global_ba_iteration_params, 1e-6),
+        (c.final_ba_iteration_params, 1e-6),
+    ):
+        it.phase_one_opt_params.max_num_iterations = 25
+        it.phase_one_opt_params.function_tolerance = ftol
+        it.phase_two_opt_params.max_num_iterations = 30
+    return c
+
+
 def shape_prior_map(config: FullOVSLAMConfig) -> Dict[str, Tuple[np.ndarray, np.ndarray]]:
     return {
         p.semantic_class: (p.mean, p.covariance) for p in config.shape_dimension_priors

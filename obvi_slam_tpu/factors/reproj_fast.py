@@ -1,4 +1,4 @@
-"""TPU-optimized reprojection residual + Jacobian kernel.
+"""Analytic reprojection residual + Jacobian (the solver's XLA path).
 
 The generic path (``residuals.reproj_residuals_and_jac``) vmaps jacfwd over
 factors, re-evaluating the pose's Rodrigues rotation (and differentiating

@@ -34,11 +34,10 @@ from obvi_slam_tpu.types import BAState, CameraBundle, FactorTables
 
 def highest_matmul(fn):
     """Pin every matmul/einsum traced inside ``fn`` to full f32 operand
-    precision. TPU's default matmul rounds f32 operands to bf16 (~2^-9
-    relative) — harmless for redundant passes, catastrophic for Jacobian /
-    Hessian values: the LM normal equations amplify the rounding by the
-    damped system's condition number (observed O(1) step error on TPU vs an
-    exact-f32 CPU step of the same problem). Explicit per-op precision
+    precision. A GPU's default float32 matmul may run in TF32 (~2^-11
+    relative operand rounding) — harmless for redundant passes, harmful for
+    Jacobian / Hessian values: the LM normal equations amplify the rounding
+    by the damped system's condition number. Explicit per-op precision
     arguments (the Schur grams) still override this scoped default."""
 
     @functools.wraps(fn)

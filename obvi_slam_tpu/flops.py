@@ -2,55 +2,53 @@
 
 The reference measures per-phase wall time with RAII cumulative timers
 (``include/analysis/cumulative_timer_constants.h:11-107``) but publishes no
-FLOP/efficiency numbers. For the TPU build, per-phase *device* arithmetic is
-statically known from the problem shapes (capacity-padded factor tables and
-the Schur plan), so the bench reports, per phase of the solve:
+FLOP/efficiency numbers. Per-phase device arithmetic is statically known from
+the problem shapes (capacity-padded factor tables and the Schur plan), so the
+bench reports, per phase of the solve, the float32 FLOPs (mults+adds, padded
+shapes — exactly what the device executes) and the speed-of-light time at the
+device's published float32 peak.
 
-  - f32 FLOPs (mults+adds, padded shapes — exactly what the device executes),
-  - MXU-pass-equivalent bf16 FLOPs (TPU executes an f32-precision matmul as
-    several bf16 MXU passes: HIGHEST = 6 / split-sym = 4, HIGH = 3 / split-sym
-    = 2 — see solver/schur.py _sym_gram_split),
-  - the speed-of-light time at the chip's peak bf16 throughput,
-
-and an overall MFU (model FLOP utilization) = sol_time / measured_time.
-
-Elementwise (VPU) phases are charged at their f32 op counts against the VPU
-peak; they are minor next to the grams but reported for completeness.
+Every product in ``compute_step`` runs at ``Precision.HIGHEST`` (full float32,
+no TF32), so the float32 rate outside the tensor cores is the bound for every
+phase; the TF32 and bf16 rates are kept in the table for kernels that use them.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
-import numpy as np
-
-# Per-chip peaks. TPU v5e (v5 lite): 197 TFLOP/s bf16 on the MXU; VPU f32
-# vector throughput ~ 197/4 TFLOP/s class. Used only for speed-of-light
-# ratios, not measurements.
-PEAK_BF16_FLOPS = {"tpu v5 lite": 197e12, "default": 197e12}
-PEAK_VPU_FLOPS = {"default": 12.3e12}
-
-
-def _gram_passes(precision: str, split: bool) -> int:
-    if precision == "HIGHEST":
-        return 4 if split else 6
-    if precision == "HIGH":
-        return 2 if split else 3
-    return 1
+# Published dense peaks per device, keyed by ``jax.devices()[0].device_kind``.
+# NVIDIA H100 SXM5 data sheet (dense, no sparsity, at the 700 W limit):
+# 67 TFLOP/s float32 without tensor cores, 495 TFLOP/s TF32, 989 TFLOP/s bf16,
+# 3.35 TB/s HBM3.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "f32_flops": 67e12,
+        "tf32_flops": 495e12,
+        "bf16_flops": 989e12,
+        "hbm_bytes_per_s": 3.35e12,
+        "source": "NVIDIA H100 Tensor Core GPU data sheet, SXM5, dense",
+    },
+}
 
 
-def lm_iteration_flops(
-    tables, plan, n_pose, n_point, n_obj,
-    gram_precision: str = "HIGHEST", split_gram: bool = True,
-    value_passes: int = 6,
-) -> Dict[str, Dict[str, float]]:
-    """Per-phase FLOP model of one compute_step + cost evaluation.
+def device_peaks(device_kind: str) -> Dict:
+    """Peak table entry for ``device_kind``; an unknown device is an error."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device kind {device_kind!r}; "
+            f"known: {sorted(PEAKS)}"
+        ) from None
 
-    ``value_passes``: MXU passes for value-bearing (Precision.HIGHEST) small
-    contractions (the one-hot z build and reduced-RHS contractions).
-    Returns {phase: {flops_f32, flops_bf16_equiv, unit}} with phases named
-    after the computation stages inside the reference's
-    ``*_solve_opt`` timers (the whole table IS the solve phase).
+
+def lm_iteration_flops(tables, plan, n_pose, n_point, n_obj) -> Dict[str, float]:
+    """Per-phase float32 FLOP model of one compute_step + cost evaluation.
+
+    Returns {phase: flops} with phases named after the computation stages
+    inside the reference's ``*_solve_opt`` timers (the whole table IS the
+    solve phase).
     """
     F_rp = int(tables.reproj.capacity)
     F_bb = int(tables.bbox.capacity)
@@ -59,44 +57,25 @@ def lm_iteration_flops(
     F_lt = int(tables.ltm.capacity)
     Lp, Cp = (int(s) for s in plan.pt_slot_gather.shape)
     Lo, Co = (int(s) for s in plan.ob_slot_gather.shape)
-    Np = int(plan.pt_pair_pose.shape[0])
-    No = int(plan.ob_pair_pose.shape[0])
     d6 = 6 * n_pose
 
-    phases: Dict[str, Dict[str, float]] = {}
-
-    def phase(name, f32, mxu_equiv=None, unit="flop"):
-        phases[name] = {
-            "flops_f32": float(f32),
-            "flops_bf16_equiv": float(mxu_equiv if mxu_equiv is not None else f32),
-            "unit": unit,
-        }
-
-    # Residual + Jacobian evaluation (VPU lane math / Pallas kernels).
-    # Per-factor op counts from the analytic chains (reproj_fast.py /
-    # factors/residuals.py); conservative estimates.
+    # Residual + Jacobian evaluation: per-factor op counts from the analytic
+    # chains (reproj_fast.py / factors/residuals.py); conservative estimates.
     resjac = 560 * F_rp + 2400 * F_bb + 60 * F_sh + 700 * F_rl + 120 * F_lt
-    phase("residual_jacobian_eval", resjac)
 
-    # Block H/b accumulation (outer products + segment sums, VPU).
+    # Block H/b accumulation (outer products + segment sums).
     hb = F_rp * (2 * (36 + 9 + 18) + 18) + F_bb * (2 * (36 + 49 + 42) + 22) \
         + F_sh * 2 * 49 + F_rl * 2 * (2 * 36 + 36) + F_lt * 2 * 49
-    phase("hessian_block_accumulation", hb)
 
-    # Batched small-block Cholesky/inverses (VPU, unrolled).
-    phase("landmark_block_inverses", n_point * 120 + n_obj * 1000 + n_pose * 600)
-
-    # One-hot z build (MXU, value-bearing: full f32 accuracy passes).
-    # Banded layout shrinks the point one-hot to the 128-wide local window.
+    # One-hot z build. The banded layout shrinks the point one-hot to the
+    # 128-wide local window.
     banded = getattr(plan, "pt_band_local_pose", None) is not None
     pt_width = 2 * 64 if banded else n_pose
     z_build = 2.0 * Lp * Cp * pt_width * 18 + 2.0 * Lo * Co * n_pose * 42
-    phase("schur_z_build", z_build, z_build * value_passes)
 
-    # Schur grams: the dominant matmuls (S assembly). With the band layout
+    # Schur grams: the dominant products (S assembly). With the band layout
     # the point gram runs as G batched (768, Lg*3, 768) group grams instead
     # of one (6P, 3Lp, 6P).
-    g_passes = _gram_passes(gram_precision, split_gram)
     pt_gram_width = 6 * pt_width
     rel_banded = getattr(plan, "rel_band_local_pose", None) is not None
     rel_gram_width = 6 * (2 * 64) if (banded and rel_banded) else d6
@@ -105,50 +84,42 @@ def lm_iteration_flops(
         + 2.0 * d6 * d6 * (Lo * 7)      # object gram
         + 2.0 * rel_gram_width * rel_gram_width * (6 * (F_rl + n_pose))
     )
-    phase("schur_gram", gram, gram * g_passes)
 
-    # Reduced RHS + back-substitution coupling contractions (MXU, HIGHEST).
-    rhs = 2.0 * (Lp * 3 * pt_gram_width + Lo * 7 * d6) * 2  # b_S + W^T delta
-    phase("reduced_rhs_backsub", rhs, rhs * value_passes)
-
-    # Dense Cholesky of S + two triangular solves + refinement matvec.
-    chol = d6**3 / 3.0 + 4.0 * d6 * d6 + 2.0 * d6 * d6
-    phase("reduced_cholesky_solve", chol, chol * value_passes)
-
-    # Cost evaluation of the stepped state (residuals only).
-    phase("cost_evaluation", 0.35 * resjac)
-
-    return phases
+    return {
+        "residual_jacobian_eval": float(resjac),
+        "hessian_block_accumulation": float(hb),
+        "landmark_block_inverses": float(
+            n_point * 120 + n_obj * 1000 + n_pose * 600
+        ),
+        "schur_z_build": z_build,
+        "schur_gram": gram,
+        # Reduced RHS + back-substitution coupling contractions.
+        "reduced_rhs_backsub": 2.0 * (Lp * 3 * pt_gram_width + Lo * 7 * d6) * 2,
+        # Dense Cholesky of S + two triangular solves + refinement matvec.
+        "reduced_cholesky_solve": d6**3 / 3.0 + 6.0 * d6 * d6,
+        # Cost evaluation of the stepped state (residuals only).
+        "cost_evaluation": 0.35 * resjac,
+    }
 
 
 def speed_of_light_table(
-    phases: Dict[str, Dict[str, float]],
-    measured_iter_s: float = None,
-    chip: str = "default",
+    phases: Dict[str, float], device_kind: str, measured_iter_s: float = None
 ) -> Dict:
-    """Attach speed-of-light times and (if measured) overall MFU."""
-    peak_mxu = PEAK_BF16_FLOPS.get(chip, PEAK_BF16_FLOPS["default"])
-    peak_vpu = PEAK_VPU_FLOPS["default"]
-    out = {"phases": {}, "peak_bf16_flops": peak_mxu}
-    total_sol = 0.0
-    total_f32 = 0.0
-    for name, ph in phases.items():
-        mxu_like = ph["flops_bf16_equiv"] != ph["flops_f32"]
-        peak = peak_mxu if mxu_like else peak_vpu
-        sol_s = ph["flops_bf16_equiv"] / peak
-        total_sol += sol_s
-        total_f32 += ph["flops_f32"]
-        out["phases"][name] = {
-            "flops_f32": ph["flops_f32"],
-            "flops_bf16_equiv": ph["flops_bf16_equiv"],
-            "sol_us": sol_s * 1e6,
-            "unit_peak": "mxu_bf16" if mxu_like else "vpu_f32",
-        }
-    out["total_flops_f32"] = total_f32
-    out["total_sol_us"] = total_sol * 1e6
+    """Speed-of-light time of each phase at the device's float32 peak and,
+    if measured, the iteration's speed-of-light fraction."""
+    peak = device_peaks(device_kind)["f32_flops"]
+    out = {
+        "device_kind": device_kind,
+        "peak_f32_flops": peak,
+        "phases": {
+            name: {"flops_f32": f, "sol_us": f / peak * 1e6}
+            for name, f in phases.items()
+        },
+    }
+    total = sum(phases.values())
+    out["total_flops_f32"] = total
+    out["total_sol_us"] = total / peak * 1e6
     if measured_iter_s is not None and measured_iter_s > 0:
         out["measured_iter_us"] = measured_iter_s * 1e6
-        # Fraction of the iteration spent at speed of light — the honest
-        # "percent of peak" for a mixed MXU/VPU/memory-bound pipeline.
-        out["sol_fraction"] = total_sol / measured_iter_s
+        out["sol_fraction"] = total / peak / measured_iter_s
     return out

@@ -4,7 +4,7 @@ Re-design of ``bounding_box_retriever.h``: the reference queries a YOLOv5
 fork through the ROS service ``/yolov5_detect_objs`` per image
 (``YoloBoundingBoxQuerier``, :33-171) and prefers file-loaded detections when
 available (``retrievePrecomputedBoundingBoxes``, :16-31, wired at
-offline_object_visual_slam_main.cpp:883-897). The TPU build keeps the same
+offline_object_visual_slam_main.cpp:883-897). This build keeps the same
 two-tier contract without a ROS runtime:
 
   - ``PrecomputedBoundingBoxRetriever``   — detections from the problem data

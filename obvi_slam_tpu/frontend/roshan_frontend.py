@@ -16,7 +16,7 @@ associator (Roshan et al.-style object tracking):
     (:341-371)
 
 Images enter through an ``hsv_image_provider(frame_id, camera_id) ->
-(H, W, 3) uint8/float HSV array`` callback (the TPU build has no ROS image
+(H, W, 3) uint8/float HSV array`` callback (this build has no ROS image
 pipeline; the provider abstracts rosbag/png sources). Without a provider,
 histograms are empty and association falls back to geometric pruning with
 zero appearance scores.

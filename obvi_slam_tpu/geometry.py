@@ -172,17 +172,17 @@ def pose_from_rt(r, t):
 
 
 def bmv(m, v):
-    """Batched matrix @ vector as VPU broadcast-multiply-reduce.
+    """Batched matrix @ vector as broadcast-multiply-reduce.
 
-    On TPU, tiny-contraction einsums/dots (k = 2..7) lower to batched MXU
-    matmuls — bf16-rounded at DEFAULT precision and 6x-replayed under
-    Precision.HIGHEST. Spelling them elementwise keeps them exact f32 AND on
-    the VPU, which is both faster and precision-safe for Jacobian math."""
+    Tiny-contraction einsums/dots (k = 2..7) lower to batched matrix
+    products, which a GPU may run in TF32 at DEFAULT precision. Spelled
+    elementwise they stay exact f32 and fuse into the surrounding
+    elementwise code."""
     return (m * v[..., None, :]).sum(-1)
 
 
 def bmm(a, b):
-    """Batched (…, i, k) @ (…, k, j) as VPU broadcast-multiply-reduce."""
+    """Batched (…, i, k) @ (…, k, j) as broadcast-multiply-reduce."""
     return (a[..., :, :, None] * b[..., None, :, :]).sum(-2)
 
 

@@ -1,8 +1,8 @@
 // Native ORB-output data loader.
 //
 // The reference's feature loader is C++
-// (orb_output_low_level_feature_reader.cpp); this is its equivalent for the
-// TPU build's host runtime: parses a directory of per-frame observation files
+// (orb_output_low_level_feature_reader.cpp); this is its equivalent for this
+// build's host runtime: parses a directory of per-frame observation files
 //   line 1: frame id, line 2: pose (skipped),
 //   rest:   feat_id cam_id x y [cam_id x y ...]
 // into flat arrays in one pass (no Python-level line parsing).

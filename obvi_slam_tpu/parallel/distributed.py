@@ -1,12 +1,13 @@
 """Multi-host scale-out helpers.
 
-The reference is single-process (SURVEY.md §2.11); the TPU build scales the
+The reference is single-process (SURVEY.md §2.11); this build scales the
 global-BA factor set across hosts with ``jax.distributed`` + a global mesh:
 
-  - within a slice, the factor axis shards over all chips and the H/b/S
-    reductions ride ICI (see parallel/sharding.py — the same annotations work
-    unchanged on a multi-host mesh because jax.make_mesh returns global
-    devices once jax.distributed is initialized);
+  - within a host, the factor axis shards over all devices and XLA inserts
+    the collectives for the H/b/S reductions (see parallel/sharding.py — the
+    same annotations work unchanged on a multi-host mesh because
+    jax.make_mesh returns global devices once jax.distributed is
+    initialized);
   - across sessions (the 16-bag evaluation sequence), sessions are
     embarrassingly parallel: ``shard_sessions`` splits a sequence across
     processes so each host runs whole sessions locally (LTM chaining forces

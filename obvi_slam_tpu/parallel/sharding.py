@@ -1,7 +1,7 @@
 """Multi-chip sharding of global bundle adjustment.
 
 The reference is single-process (Ceres threads only, SURVEY.md §2.11); this is
-the capability it lacks: global-BA scale-out across a TPU slice.
+the capability it lacks: global-BA scale-out across the devices of a host.
 
 Design (the "annotate shardings, let XLA insert collectives" recipe):
   - the FACTOR axis is the data-parallel axis: every factor table, the
@@ -9,7 +9,7 @@ Design (the "annotate shardings, let XLA insert collectives" recipe):
     across devices on their leading (capacity) axis;
   - the state (poses/points/objects), landmark blocks, and the dense reduced
     camera system are replicated — XLA partitions the segment-sums and
-    scatter-adds and inserts ``all-reduce`` (psum) over ICI to combine each
+    scatter-adds and inserts ``all-reduce`` (psum) collectives to combine each
     device's partial H_ll / H_oo / b / S contributions;
   - the dense solve of the reduced system runs replicated (pose counts are
     10^2-10^3 — its cost is small next to residual/Jacobian/outer-product
@@ -137,7 +137,7 @@ def shard_problem(problem, mesh, axis_name=FACTOR_AXIS):
 
 def sharded_compute_step(mesh):
     """A jitted compute_step whose outputs are replicated; inputs carry their
-    shardings from device_put (XLA partitions the body and inserts the ICI
+    shardings from device_put (XLA partitions the body and inserts the
     all-reduces for the H/b/S accumulations)."""
     out_sharding = NamedSharding(mesh, P())
 

@@ -4,7 +4,7 @@ At reference scale (~10^3 poses, UT campus global BA,
 ``sequences/evaluation_2023_07_v1.json``) the dense reduced system is
 (6P)^2 ~ 150 MB and its O(P^3) Cholesky dominates the LM iteration — the
 cost Ceres avoids with SPARSE_SCHUR's sparse factorization
-(``object_pose_graph_optimizer.h:652-666``). The TPU-native answer exploits
+(``object_pose_graph_optimizer.h:652-666``). The answer here exploits
 the SAME structure the banded gram already exposes (schur._band_layout):
 
   - feature tracks span <= 2 consecutive 64-pose tiles, so the point Schur
@@ -142,9 +142,8 @@ def cr_factor(d_tiles, e_tiles):
     matrix: each level eliminates the odd-indexed blocks IN PARALLEL
     (batched Cholesky + batched matmuls), halving the system — log2(nb)
     sequential stages instead of nb. The sequential block-tridiag scan
-    (block_tridiag_cholesky) is latency-bound on TPU (~100 us per tiny
-    tile step through the fused program); cyclic reduction trades ~2x the
-    FLOPs for ~4 batched stages.
+    (block_tridiag_cholesky) is latency-bound (one small dependent step
+    per tile); cyclic reduction trades ~2x the FLOPs for ~4 batched stages.
 
     Returns an opaque ``levels`` structure for cr_solve. Blocks are padded
     with identity diagonals / zero couplings to an even count per level
@@ -255,7 +254,7 @@ def _woodbury_from_bsolve(b_solve, d_tiles, e_tiles, z, rhs, n_refine,
     dtype = d_tiles.dtype
 
     # ONE band traversal for rhs + Z together: the scans are sequential over
-    # tiles (latency-bound on TPU), so extra right-hand sides ride along for
+    # tiles (latency-bound), so extra right-hand sides ride along for
     # almost free while a separate traversal costs a full chain of
     # dispatch-dependent steps.
     y_all = b_solve(jnp.concatenate([rhs[:, None], z.T], axis=1))
@@ -304,8 +303,8 @@ def woodbury_band_solve(d_tiles, e_tiles, z, rhs, n_refine=1):
     nb, m, _ = d_tiles.shape
 
     # Cyclic reduction for deep bands (log2(nb) batched stages instead of
-    # nb sequential scan steps — the scan is latency-bound at ~100 us/step
-    # through the fused program); the scan path stays for shallow bands
+    # nb sequential scan steps — the scan is latency-bound, one small
+    # dependent step per tile); the scan path stays for shallow bands
     # where its lower FLOP count wins.
     use_cr = _use_cyclic_reduction(nb)
     if use_cr:
@@ -570,8 +569,8 @@ def dd_woodbury_band_solve(
         cross-domain coupling);
       - interiors factor and solve BATCHED over the domain axis — under a
         domain-axis sharding these ops are embarrassingly parallel, so each
-        host touches only its own tiles (the replicated CR path all-gathered
-        33.8 MB of level batches per iteration over DCN, SCALING_r04);
+        device touches only its own tiles (the replicated CR path
+        all-gathers every level batch each iteration);
       - the interface Schur complement S_G = B_GG - B_GI B_II^-1 B_IG is a
         TINY block-tridiagonal system over the n_domains interface tiles
         ((H, 384, 384) ~ 0.6 MB/host to combine) solved replicated;

@@ -48,6 +48,13 @@ class LMParams:
     min_relative_decrease: float = 1e-3
     max_consecutive_nonmonotonic_steps: int = 5
 
+    @classmethod
+    def fixed_iterations(cls, n: int) -> "LMParams":
+        """``n`` iterations with every convergence tolerance off, so the
+        iteration count never depends on the values (benchmarks, checks)."""
+        return cls(max_num_iterations=n, function_tolerance=0.0,
+                   gradient_tolerance=0.0, parameter_tolerance=0.0)
+
 
 class IterationRecord(NamedTuple):
     iteration: int

@@ -1,18 +1,28 @@
-"""Synthetic joint object-visual BA problem generator.
+"""Seeded synthetic inputs.
 
-Shared by __graft_entry__ (compile checks), bench.py (perf measurement), and
-tests. Produces capacity-padded factor tables directly (no pose-graph pass) so
-problem size is fully parameterizable. All generation math is vectorized
-numpy — no per-observation device calls."""
+``synthetic_problem`` builds a joint object-visual BA problem as
+capacity-padded factor tables directly (no pose-graph pass), so problem size
+is fully parameterizable; its generation math is vectorized numpy.
+``make_object_session`` builds a whole object session (camera, feature
+tracks, detections, noisy initial trajectory) for the runner and the main
+CLI, and ``export_session`` writes it in the reference's input file formats.
+Shared by __graft_entry__, bench.py, chip_smoke.py, the tools and the tests."""
 
 from __future__ import annotations
 
-import numpy as np
+from pathlib import Path
 
+import numpy as np
+from scipy.spatial.transform import Rotation
+
+import jax
 import jax.numpy as jnp
 
+from obvi_slam_tpu import geometry as geo
 from obvi_slam_tpu import solver as slv
 from obvi_slam_tpu import types as T
+from obvi_slam_tpu.offline_data import OfflineProblemData, RawBoundingBox
+from obvi_slam_tpu.pose_graph import CameraInfo
 
 
 def _np_rotvec_to_matrix(w):
@@ -249,3 +259,196 @@ def synthetic_problem(
     weights = slv.ones_weights(tables, dtype=state0.poses.dtype)
     huber = slv.schur.HuberParams()
     return state0, state_gt, cams, tables, plan, free, weights, huber
+
+
+# The reference-scale global-BA problem (UT-campus shape): 98,304
+# reprojection rows and 768 bbox rows.
+GLOBAL_BA_1024 = dict(n_poses=1024, n_points=16384, n_objects=64,
+                      obs_per_point=6, obs_per_object=12)
+
+# Relative error bound of an f32 step against the f64 step (pose delta): the
+# damped normal equations amplify f32 rounding by the system's condition
+# number.
+F32_STEP_REL_ERR = 5e-3
+
+
+def put_problem(problem, device):
+    """Place a synthetic_problem tuple on ``device`` (huber stays static)."""
+    return jax.device_put(problem[:-1], device) + (problem[-1],)
+
+
+def step_pose_delta(problem, device=None, shard_mesh=None):
+    """One jitted ``compute_step`` from the problem's initial state at a
+    wide trust region: (pose delta, model cost change), on the device.
+    ``device`` places the problem first; a sharded problem passes None."""
+    state0, _, cams, tables, plan, free, weights, huber = problem
+    radius = jnp.asarray(1e4, state0.poses.dtype)
+    args = (state0, cams, tables, plan, free, weights, radius)
+    if device is not None:
+        args = jax.device_put(args, device)
+    delta, model_change, _ = jax.jit(
+        lambda s, c, t, p, f, w, r: slv.schur.compute_step(
+            s, c, t, p, f, w, r, huber, shard_mesh=shard_mesh)
+    )(*args)
+    return delta.poses, model_change
+
+
+def rel_err(a, b):
+    """||a - b|| / ||b|| in float64."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-30))
+
+
+def project_px(pose, point, cam: CameraInfo):
+    rw = Rotation.from_rotvec(pose[3:]).as_matrix()
+    p_robot = rw.T @ (point - pose[:3])
+    p_cam = cam.extrinsics_r.T @ (p_robot - cam.extrinsics_t)
+    if p_cam[2] <= 0.3:
+        return None
+    K = cam.intrinsics
+    return np.array(
+        [K[0, 0] * p_cam[0] / p_cam[2] + K[0, 2], K[1, 1] * p_cam[1] / p_cam[2] + K[1, 2]]
+    )
+
+
+def make_object_session(n_frames=14, seed=21):
+    """Scene with 2 'chair' objects + surface features ON the objects (so the
+    feature-overlap association signal works) + background features."""
+    rng = np.random.default_rng(seed)
+    K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]])
+    cameras = {1: CameraInfo(K, np.eye(3), np.zeros(3))}
+
+    gt_poses = np.zeros((n_frames, 6))
+    gt_poses[:, 0] = np.arange(n_frames) * 0.2
+
+    # chairs (class prior: mean [0.62, 0.62, 0.975])
+    gt_objects = np.array(
+        [
+            [1.0, 0.5, 7.0, 0.0, 0.62, 0.62, 0.975],
+            [-1.8, 0.4, 10.0, 0.0, 0.62, 0.62, 0.975],
+        ]
+    )
+
+    # Features: 10 on each object surface + 20 background.
+    feat_positions = {}
+    fid = 0
+    for k in range(2):
+        for _ in range(10):
+            offset = rng.uniform(-0.5, 0.5, 3) * gt_objects[k, 4:7]
+            feat_positions[fid] = gt_objects[k, :3] + offset
+            fid += 1
+    for _ in range(20):
+        feat_positions[fid] = np.array(
+            [rng.uniform(-5, 5), rng.uniform(-2, 2), rng.uniform(4, 15)]
+        )
+        fid += 1
+
+    feature_tracks = {}
+    for j, pos in feat_positions.items():
+        track = {}
+        for i in range(n_frames):
+            px = project_px(gt_poses[i], pos, cameras[1])
+            if px is not None and 0 <= px[0] <= 640 and 0 <= px[1] <= 480:
+                track[i] = {1: px + rng.normal(size=2) * 0.3}
+        if len(track) >= 2:
+            feature_tracks[j] = track
+
+    # Bounding boxes: projected GT ellipsoid corners + noise.
+    bounding_boxes = {}
+    for i in range(n_frames):
+        bbs = []
+        for k in range(2):
+            c, valid = geo.ellipsoid_corners_rectified(
+                jnp.asarray(gt_objects[k]), jnp.asarray(gt_poses[i]), jnp.eye(3), jnp.zeros(3)
+            )
+            if not bool(valid):
+                continue
+            c = np.asarray(c)
+            px = np.array(
+                [
+                    500.0 * c[0] + 320.0,
+                    500.0 * c[1] + 320.0,
+                    500.0 * c[2] + 240.0,
+                    500.0 * c[3] + 240.0,
+                ]
+            ) + rng.normal(size=4) * 1.0
+            if px[1] < 10 or px[0] > 630 or px[3] < 10 or px[2] > 470:
+                continue
+            bbs.append(RawBoundingBox(px, "chair", 0.9))
+        if bbs:
+            bounding_boxes[i] = {1: bbs}
+
+    init_poses = {
+        i: gt_poses[i] + np.concatenate([rng.normal(size=3) * 0.01, rng.normal(size=3) * 0.004])
+        for i in range(n_frames)
+    }
+    init_poses[0] = gt_poses[0].copy()
+    feature_init = {j: feat_positions[j] + rng.normal(size=3) * 0.05 for j in feature_tracks}
+
+    data = OfflineProblemData(
+        cameras=cameras,
+        feature_tracks=feature_tracks,
+        feature_init_positions=feature_init,
+        initial_poses=init_poses,
+        bounding_boxes=bounding_boxes,
+    )
+    return data, gt_poses, gt_objects
+
+
+def export_session(data, gt_poses, out_dir: Path, odom_as_init=True):
+    """Write a session in the reference's input file formats."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # Intrinsics / extrinsics CSVs.
+    with open(out_dir / "intrinsics.csv", "w") as f:
+        f.write("camera_id,img_width,img_height,mat_00,mat_01,mat_02,mat_10,mat_11,mat_12,mat_20,mat_21,mat_22\n")
+        for cam_id, cam in data.cameras.items():
+            k = cam.intrinsics.ravel()
+            f.write(f"{cam_id},640,480," + ",".join(str(v) for v in k) + "\n")
+    with open(out_dir / "extrinsics.csv", "w") as f:
+        f.write("camera_id,transl_x,transl_y,transl_z,quat_x,quat_y,quat_z,quat_w\n")
+        for cam_id, cam in data.cameras.items():
+            q = Rotation.from_matrix(cam.extrinsics_r).as_quat()
+            t = cam.extrinsics_t
+            f.write(f"{cam_id},{t[0]},{t[1]},{t[2]},{q[0]},{q[1]},{q[2]},{q[3]}\n")
+    # Initial trajectory.
+    with open(out_dir / "poses.csv", "w") as f:
+        f.write("node_id,transl_x,transl_y,transl_z,quat_x,quat_y,quat_z,quat_w\n")
+        for frame, p in sorted(data.initial_poses.items()):
+            q = Rotation.from_rotvec(p[3:6]).as_quat()
+            f.write(f"{frame},{p[0]},{p[1]},{p[2]},{q[0]},{q[1]},{q[2]},{q[3]}\n")
+    # Ground truth trajectory (for metrics).
+    with open(out_dir / "gt_poses.csv", "w") as f:
+        f.write("node_id,transl_x,transl_y,transl_z,quat_x,quat_y,quat_z,quat_w\n")
+        for frame in range(len(gt_poses)):
+            p = gt_poses[frame]
+            q = Rotation.from_rotvec(p[3:6]).as_quat()
+            f.write(f"{frame},{p[0]},{p[1]},{p[2]},{q[0]},{q[1]},{q[2]},{q[3]}\n")
+    # Bounding boxes.
+    with open(out_dir / "bounding_boxes.csv", "w") as f:
+        f.write("min_pixel_x,min_pixel_y,max_pixel_x,max_pixel_y,semantic_class,node_id,camera_id,detection_confidence\n")
+        for frame, by_cam in sorted(data.bounding_boxes.items()):
+            for cam_id, bbs in by_cam.items():
+                for bb in bbs:
+                    c = bb.corners  # [x_min, x_max, y_min, y_max]
+                    f.write(
+                        f"{c[0]},{c[2]},{c[1]},{c[3]},{bb.semantic_class},{frame},{cam_id},{bb.detection_confidence}\n"
+                    )
+    # ORB output directory.
+    orb = out_dir / "orb_out"
+    (orb / "features").mkdir(parents=True, exist_ok=True)
+    frames = sorted(data.initial_poses)
+    for frame in frames:
+        with open(orb / f"{frame:06d}.txt", "w") as f:
+            f.write(f"{frame}\n")
+            f.write("0 0 0 0 0 0 1\n")  # pose line (skipped by reader)
+            feats = data.features_for_frame(frame)
+            for feat_id in sorted(feats):
+                parts = [str(feat_id)]
+                for cam_id, px in sorted(feats[feat_id].items()):
+                    parts += [str(cam_id), str(px[0]), str(px[1])]
+                f.write(" ".join(parts) + "\n")
+    with open(orb / "features" / "features.txt", "w") as f:
+        f.write("feature_id,x,y,z\n")
+        for feat_id, pos in sorted(data.feature_init_positions.items()):
+            f.write(f"{feat_id},{pos[0]},{pos[1]},{pos[2]}\n")
+    return out_dir

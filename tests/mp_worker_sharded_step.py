@@ -3,9 +3,9 @@
 Launched by tests/test_multiprocess.py with `jax.distributed` coordinates on
 the CLI. Each process contributes 2 virtual CPU devices; together the
 processes form one global mesh over which the factor tables are sharded
-exactly as they would be across TPU hosts (SURVEY.md §4: "multi-host tests
+exactly as they would be across GPU hosts (SURVEY.md §4: "multi-host tests
 using multi-process JAX on CPU as the fake backend"). The full LM step runs
-with Gloo collectives standing in for ICI/DCN all-reduces; each process
+with Gloo collectives standing in for NCCL all-reduces; each process
 writes scalar checksums of the (replicated) result for the parent to compare
 against the single-process answer.
 """

@@ -2,11 +2,8 @@
 mini-BA initialization, merges, and the full joint object-visual run."""
 
 import numpy as np
-import pytest
-from scipy.spatial.transform import Rotation
 
 from obvi_slam_tpu import config as cfg
-from obvi_slam_tpu import geometry as geo
 from obvi_slam_tpu.frontend import (
     FeatureBasedBoundingBoxFrontEnd,
     VisualFeatureFrontend,
@@ -14,109 +11,10 @@ from obvi_slam_tpu.frontend import (
     make_bb_frontend_hook,
     merge_objects_by_center_proximity,
 )
-from obvi_slam_tpu.offline_data import OfflineProblemData, RawBoundingBox
-from obvi_slam_tpu.pose_graph import CameraInfo, PoseGraph
+from obvi_slam_tpu.offline_data import RawBoundingBox
+from obvi_slam_tpu.pose_graph import PoseGraph
 from obvi_slam_tpu.runner import OfflineProblemRunner
-
-import jax.numpy as jnp
-
-REF_CONFIG = "/root/reference/config/base7a_1_fallback_a_2.json"
-
-
-def project_px(pose, point, cam: CameraInfo):
-    rw = Rotation.from_rotvec(pose[3:]).as_matrix()
-    p_robot = rw.T @ (point - pose[:3])
-    p_cam = cam.extrinsics_r.T @ (p_robot - cam.extrinsics_t)
-    if p_cam[2] <= 0.3:
-        return None
-    K = cam.intrinsics
-    return np.array(
-        [K[0, 0] * p_cam[0] / p_cam[2] + K[0, 2], K[1, 1] * p_cam[1] / p_cam[2] + K[1, 2]]
-    )
-
-
-def make_object_session(n_frames=14, seed=21):
-    """Scene with 2 'chair' objects + surface features ON the objects (so the
-    feature-overlap association signal works) + background features."""
-    rng = np.random.default_rng(seed)
-    K = np.array([[500.0, 0, 320.0], [0, 500.0, 240.0], [0, 0, 1.0]])
-    cameras = {1: CameraInfo(K, np.eye(3), np.zeros(3))}
-
-    gt_poses = np.zeros((n_frames, 6))
-    gt_poses[:, 0] = np.arange(n_frames) * 0.2
-
-    # chairs (class prior: mean [0.62, 0.62, 0.975])
-    gt_objects = np.array(
-        [
-            [1.0, 0.5, 7.0, 0.0, 0.62, 0.62, 0.975],
-            [-1.8, 0.4, 10.0, 0.0, 0.62, 0.62, 0.975],
-        ]
-    )
-
-    # Features: 10 on each object surface + 20 background.
-    feat_positions = {}
-    fid = 0
-    for k in range(2):
-        for _ in range(10):
-            offset = rng.uniform(-0.5, 0.5, 3) * gt_objects[k, 4:7]
-            feat_positions[fid] = gt_objects[k, :3] + offset
-            fid += 1
-    for _ in range(20):
-        feat_positions[fid] = np.array(
-            [rng.uniform(-5, 5), rng.uniform(-2, 2), rng.uniform(4, 15)]
-        )
-        fid += 1
-
-    feature_tracks = {}
-    for j, pos in feat_positions.items():
-        track = {}
-        for i in range(n_frames):
-            px = project_px(gt_poses[i], pos, cameras[1])
-            if px is not None and 0 <= px[0] <= 640 and 0 <= px[1] <= 480:
-                track[i] = {1: px + rng.normal(size=2) * 0.3}
-        if len(track) >= 2:
-            feature_tracks[j] = track
-
-    # Bounding boxes: projected GT ellipsoid corners + noise.
-    bounding_boxes = {}
-    for i in range(n_frames):
-        bbs = []
-        for k in range(2):
-            c, valid = geo.ellipsoid_corners_rectified(
-                jnp.asarray(gt_objects[k]), jnp.asarray(gt_poses[i]), jnp.eye(3), jnp.zeros(3)
-            )
-            if not bool(valid):
-                continue
-            c = np.asarray(c)
-            px = np.array(
-                [
-                    500.0 * c[0] + 320.0,
-                    500.0 * c[1] + 320.0,
-                    500.0 * c[2] + 240.0,
-                    500.0 * c[3] + 240.0,
-                ]
-            ) + rng.normal(size=4) * 1.0
-            if px[1] < 10 or px[0] > 630 or px[3] < 10 or px[2] > 470:
-                continue
-            bbs.append(RawBoundingBox(px, "chair", 0.9))
-        if bbs:
-            bounding_boxes[i] = {1: bbs}
-
-    init_poses = {
-        i: gt_poses[i] + np.concatenate([rng.normal(size=3) * 0.01, rng.normal(size=3) * 0.004])
-        for i in range(n_frames)
-    }
-    init_poses[0] = gt_poses[0].copy()
-    feature_init = {j: feat_positions[j] + rng.normal(size=3) * 0.05 for j in feature_tracks}
-
-    data = OfflineProblemData(
-        cameras=cameras,
-        feature_tracks=feature_tracks,
-        feature_init_positions=feature_init,
-        initial_poses=init_poses,
-        bounding_boxes=bounding_boxes,
-    )
-    return data, gt_poses, gt_objects
+from obvi_slam_tpu.synthetic import make_object_session
 
 
 def make_frontend(pg, config):
@@ -130,7 +28,7 @@ def make_frontend(pg, config):
 
 
 def object_config():
-    c = cfg.read_config(REF_CONFIG)
+    c = cfg.object_session_config(pgo=False)
     c.sliding_window_params.local_ba_window_size = 6
     c.sliding_window_params.global_ba_frequency = 5
     en = c.optimization_factors_enabled_params

@@ -101,7 +101,8 @@ class TestSubprocessQuerier:
 
 class TestHookIntegration:
     def test_precomputed_preferred_querier_fallback(self, tmp_path):
-        from test_bb_frontend import make_frontend, make_object_session, object_config
+        from obvi_slam_tpu.synthetic import make_object_session
+        from test_bb_frontend import make_frontend, object_config
 
         data, gt_poses, gt_objects = make_object_session()
         pre = PrecomputedBoundingBoxRetriever(data)

@@ -1,7 +1,7 @@
 """Device-resident session tables: diff-sync correctness.
 
 The reference rebuilds its Ceres problem per window
-(``object_pose_graph_optimizer.h:412-472``); our TPU-native replacement keeps
+(``object_pose_graph_optimizer.h:412-472``); our replacement keeps
 the session's factor tables device-resident and uploads only changed rows
 (solver/device_sync.py). These tests pin:
   - a synced runner session produces the same trajectory as an unsynced one,

@@ -1,10 +1,10 @@
-"""f32 (TPU-style) solver-step accuracy vs the f64 reference path.
+"""f32 (device-dtype) solver-step accuracy vs the f64 reference path.
 
-The TPU runs the solver in f32 while the reference (Ceres) is f64. Two
+The device runs the solver in f32 while the reference (Ceres) is f64. Two
 mechanisms in ``schur.compute_step`` close most of that gap:
-- precision=HIGHEST on the dense-U Schur MXU contraction (f32 operands are
-  otherwise rounded to bf16 on TPU; on CPU this is a no-op, so this test
-  guards the refinement logic and overall f32 pipeline), and
+- precision=HIGHEST on the dense-U Schur contraction (a GPU may otherwise
+  run f32 products in TF32; on CPU this is a no-op, so this test guards the
+  refinement logic and overall f32 pipeline), and
 - one step of iterative refinement on the reduced-camera Cholesky solve.
 
 The test computes one LM step on the same synthetic problem in f64 and in

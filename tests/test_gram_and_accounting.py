@@ -1,105 +1,8 @@
-"""Unit tests: symmetric split-bf16 gram numerics, FLOP accounting model,
-and the per-LM-iteration CSV logger."""
+"""Unit tests: FLOP accounting model, the device peak table, and the
+per-LM-iteration CSV logger."""
 
 import numpy as np
-import jax
-import jax.numpy as jnp
 import pytest
-
-from obvi_slam_tpu.solver import schur as sm
-
-
-class TestSymGramSplit:
-    """_sym_gram_split must reproduce the f32 gram at the precision grade's
-    error level (HIGHEST-grade ~ f32-exact, HIGH-grade ~ 2^-16 operand)."""
-
-    @pytest.fixture()
-    def z4(self):
-        rng = np.random.default_rng(0)
-        z = rng.normal(size=(64, 16, 6, 3)) * rng.lognormal(0, 2, (64, 16, 6, 3))
-        return jnp.asarray(z.astype(np.float32))
-
-    def _exact64(self, z):
-        z64 = np.asarray(z, np.float64)
-        return np.einsum("lpib,lqjb->piqj", z64, z64)
-
-    def test_highest_grade_matches_f32_exact(self, z4):
-        old = sm._GRAM_PRECISION
-        try:
-            sm._GRAM_PRECISION = jax.lax.Precision.HIGHEST
-            s = np.asarray(sm._sym_gram_split(z4, (0, 3)), np.float64)
-        finally:
-            sm._GRAM_PRECISION = old
-        e = self._exact64(z4)
-        err = np.linalg.norm(s - e) / np.linalg.norm(e)
-        assert err < 5e-7, err
-
-    def test_high_grade_within_operand_rounding(self, z4):
-        old = sm._GRAM_PRECISION
-        try:
-            sm._GRAM_PRECISION = jax.lax.Precision.HIGH
-            s = np.asarray(sm._sym_gram_split(z4, (0, 3)), np.float64)
-        finally:
-            sm._GRAM_PRECISION = old
-        e = self._exact64(z4)
-        err = np.linalg.norm(s - e) / np.linalg.norm(e)
-        assert err < 5e-5, err
-
-    def test_exactly_symmetric(self, z4):
-        s = np.asarray(sm._sym_gram_split(z4, (0, 3)))
-        s2 = s.transpose(2, 3, 0, 1)
-        np.testing.assert_array_equal(s, s2)
-
-    def test_2d_gram(self):
-        rng = np.random.default_rng(1)
-        m = jnp.asarray(rng.normal(size=(48, 96)).astype(np.float32))
-        old = sm._GRAM_PRECISION
-        try:
-            sm._GRAM_PRECISION = jax.lax.Precision.HIGHEST
-            s = np.asarray(sm._sym_gram_split(m, (1,)), np.float64)
-        finally:
-            sm._GRAM_PRECISION = old
-        m64 = np.asarray(m, np.float64)
-        e = m64 @ m64.T
-        assert np.linalg.norm(s - e) / np.linalg.norm(e) < 5e-7
-
-    def test_split_parts_sum_to_input(self):
-        rng = np.random.default_rng(2)
-        x = jnp.asarray(rng.normal(size=(32, 8)).astype(np.float32) * 1e3)
-        parts = sm._split_bf16(x, 3)
-        total = sum(p.astype(jnp.float32) for p in parts)
-        # 3 bf16 parts carry ~24 mantissa bits -> f32-exact reconstruction.
-        np.testing.assert_allclose(np.asarray(total), np.asarray(x), rtol=2e-7)
-
-    def test_compute_step_split_matches_dot_on_cpu(self):
-        """Force the split impl through the full compute_step on CPU f32 and
-        compare with the plain HIGHEST dot path."""
-        from obvi_slam_tpu.synthetic import synthetic_problem
-
-        state0, _, cams, tables, plan, free, weights, huber = synthetic_problem(
-            n_poses=16, n_points=64, n_objects=4,
-            obs_per_point=4, obs_per_object=6, dtype=np.float32,
-        )
-        radius = jnp.asarray(1e4, jnp.float32)
-        old = sm._GRAM_IMPL
-        try:
-            sm._GRAM_IMPL = "dot"
-            d_ref, mcc_ref, _ = sm.compute_step(
-                state0, cams, tables, plan, free, weights, radius, huber
-            )
-            sm._GRAM_IMPL = "split"
-            d_s, mcc_s, _ = sm.compute_step(
-                state0, cams, tables, plan, free, weights, radius, huber
-            )
-        finally:
-            sm._GRAM_IMPL = old
-        # f32 split vs dot differ by summation order; the damped normal
-        # equations amplify the roundoff (same mechanism and budget as
-        # tests/test_f32_precision).
-        np.testing.assert_allclose(
-            np.asarray(d_s.poses), np.asarray(d_ref.poses), rtol=2e-3, atol=1e-5
-        )
-        np.testing.assert_allclose(float(mcc_s), float(mcc_ref), rtol=1e-3)
 
 
 class TestFlopAccounting:
@@ -107,38 +10,54 @@ class TestFlopAccounting:
         from obvi_slam_tpu import flops
         from obvi_slam_tpu.synthetic import synthetic_problem
 
+        sizes = dict(n_points=256, n_objects=8, obs_per_point=4, obs_per_object=6)
         _, _, _, tables, plan, _, _, _ = synthetic_problem(
-            n_poses=32, n_points=256, n_objects=8,
-            obs_per_point=4, obs_per_object=6, dtype=np.float32,
+            n_poses=32, dtype=np.float32, **sizes
         )
-        ph = flops.lm_iteration_flops(
-            tables, plan, 32, 256, 8, gram_precision="HIGHEST", split_gram=True
-        )
+        ph = flops.lm_iteration_flops(tables, plan, 32, 256, 8)
         assert set(ph) >= {
             "residual_jacobian_eval", "schur_z_build", "schur_gram",
             "reduced_cholesky_solve", "cost_evaluation",
         }
-        # Split-HIGHEST charges 4 passes on the gram.
-        g = ph["schur_gram"]
-        assert g["flops_bf16_equiv"] == pytest.approx(4 * g["flops_f32"])
-        ph_high = flops.lm_iteration_flops(
-            tables, plan, 32, 256, 8, gram_precision="HIGH", split_gram=True
+        assert all(v > 0 for v in ph.values())
+        # Doubling the poses at least doubles the gram's work.
+        _, _, _, tables2, plan2, _, _, _ = synthetic_problem(
+            n_poses=64, dtype=np.float32, **sizes
         )
-        assert ph_high["schur_gram"]["flops_bf16_equiv"] == pytest.approx(
-            2 * g["flops_f32"]
-        )
+        ph2 = flops.lm_iteration_flops(tables2, plan2, 64, 256, 8)
+        assert ph2["schur_gram"] >= 2 * ph["schur_gram"]
 
     def test_speed_of_light_table(self):
         from obvi_slam_tpu import flops
 
-        phases = {
-            "a": {"flops_f32": 1e9, "flops_bf16_equiv": 4e9, "unit": "flop"},
-            "b": {"flops_f32": 1e6, "flops_bf16_equiv": 1e6, "unit": "flop"},
-        }
-        t = flops.speed_of_light_table(phases, measured_iter_s=1e-3)
-        assert t["phases"]["a"]["sol_us"] == pytest.approx(4e9 / 197e12 * 1e6)
+        kind = "NVIDIA H100 80GB HBM3"
+        t = flops.speed_of_light_table(
+            {"a": 4e9, "b": 1e6}, kind, measured_iter_s=1e-3
+        )
+        assert t["phases"]["a"]["sol_us"] == pytest.approx(4e9 / 67e12 * 1e6)
+        assert t["total_flops_f32"] == pytest.approx(4e9 + 1e6)
         assert 0 < t["sol_fraction"] < 1
         assert t["measured_iter_us"] == pytest.approx(1000.0)
+
+    def test_h100_peaks_have_a_source(self):
+        from obvi_slam_tpu import flops
+
+        p = flops.device_peaks("NVIDIA H100 80GB HBM3")
+        assert (p["f32_flops"], p["tf32_flops"], p["bf16_flops"]) == (
+            67e12, 495e12, 989e12
+        )
+        assert p["hbm_bytes_per_s"] == 3.35e12 and "data sheet" in p["source"]
+
+    @pytest.mark.parametrize(
+        "kind", ["cpu", "AMD Instinct MI300X", "NVIDIA A100-SXM4-80GB", "default"]
+    )
+    def test_unknown_device_is_an_error(self, kind):
+        from obvi_slam_tpu import flops
+
+        with pytest.raises(ValueError, match="no published peaks"):
+            flops.device_peaks(kind)
+        with pytest.raises(ValueError):
+            flops.speed_of_light_table({"a": 1.0}, kind)
 
 
 class TestIterationLogger:

@@ -1,6 +1,8 @@
 """Fused on-device LM must match the host-loop LM on the same problems."""
 
+import jax
 import numpy as np
+import pytest
 
 import obvi_slam_tpu.solver as slv
 from obvi_slam_tpu.synthetic import synthetic_problem
@@ -58,3 +60,35 @@ class TestFusedMatchesHostLoop:
         )
         assert summary.final_cost == summary.initial_cost
         np.testing.assert_array_equal(np.asarray(s.poses), np.asarray(state0.poses))
+
+
+class TestMeshAgreedLoopExit:
+    """The sharded loop's exit test is one vote over the mesh, so a device
+    whose replicated copy says "stop" stops every device."""
+
+    @staticmethod
+    def _per_device(values, mesh):
+        from jax.sharding import NamedSharding, PartitionSpec
+
+        # A "replicated" array whose copies differ, as last-bit differences
+        # between devices can make them.
+        shards = [
+            jax.device_put(np.asarray(v), d)
+            for v, d in zip(values, mesh.devices.flat)
+        ]
+        return jax.make_array_from_single_device_arrays(
+            (), NamedSharding(mesh, PartitionSpec()), shards
+        )
+
+    @pytest.mark.parametrize(
+        "votes", [(True,) * 4, (True, True, False, True), (False,) * 4]
+    )
+    def test_every_device_gets_the_and(self, votes):
+        from obvi_slam_tpu import parallel as par
+        from obvi_slam_tpu.solver.lm_fused import mesh_all
+
+        mesh = par.make_mesh(jax.devices()[:4])
+        pred = self._per_device(votes, mesh)
+        out = jax.jit(lambda p: mesh_all(p, mesh))(pred)
+        got = [bool(s.data) for s in out.addressable_shards]
+        assert got == [all(votes)] * 4

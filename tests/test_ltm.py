@@ -21,7 +21,8 @@ from obvi_slam_tpu.ltm import (
 from obvi_slam_tpu.pose_graph import PoseGraph
 from obvi_slam_tpu.runner import OfflineProblemRunner, RunnerHooks
 
-from test_bb_frontend import make_frontend, make_object_session, object_config
+from obvi_slam_tpu.synthetic import make_object_session
+from test_bb_frontend import make_frontend, object_config
 
 
 def run_session(data, config, ltm=None):

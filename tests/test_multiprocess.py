@@ -1,10 +1,10 @@
 """Multi-process (fake multi-host) distributed solver test.
 
-The reference is single-process (SURVEY.md §2.11); the TPU build's multi-host
+The reference is single-process (SURVEY.md §2.11); this build's multi-host
 story is jax.distributed + a global mesh (parallel/distributed.py). This test
 actually runs it: two OS processes, each with 2 virtual CPU devices, form a
 4-device global mesh; the factor-sharded LM step executes with Gloo
-collectives standing in for ICI/DCN, and the result must match the
+collectives standing in for NCCL, and the result must match the
 single-process solver bit-for-bit-ish (f64, same program order per shard).
 """
 

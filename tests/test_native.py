@@ -61,8 +61,7 @@ class TestOrbLoaderNative:
         # Full directory equivalence against io.readers.
         import sys
         sys.path.insert(0, os.path.join(os.path.dirname(__file__)))
-        from test_bb_frontend import make_object_session
-        from test_cli import export_session
+        from obvi_slam_tpu.synthetic import export_session, make_object_session
 
         data, gt_poses, _ = make_object_session(n_frames=6, seed=50)
         export_session(data, gt_poses, tmp_path)

@@ -13,7 +13,7 @@ from obvi_slam_tpu.frontend import VisualFeatureFrontend
 from obvi_slam_tpu.pose_graph import PoseGraph
 from obvi_slam_tpu.runner import OfflineProblemRunner
 
-from test_runner_e2e import REF_CONFIG, ate_rmse, make_session, small_config
+from test_runner_e2e import ate_rmse, make_session, small_config
 
 
 def pgo_config():

@@ -10,7 +10,7 @@ is the fixture's own noise floor, so assertions are RELATIVE: BA from a
 perturbed start must reach (at least) the ground-truth state's cost and
 recover the trajectory.
 
-Also validates f32 (TPU dtype) vs f64 solves on the same problem
+Also validates f32 (device dtype) vs f64 solves on the same problem
 (SURVEY hard part #5).
 """
 
@@ -150,7 +150,7 @@ class TestVslamSet1:
         assert ate < 0.05, ate
 
     def test_f32_matches_f64_solution(self, fixture_problem):
-        """SURVEY hard part #5: the TPU dtype (f32) must reach the same
+        """SURVEY hard part #5: the device dtype (f32) must reach the same
         solution as the f64 reference-parity solve."""
         s64, g64, cams64, t64, free, gt = build_state_tables(
             fixture_problem, pose_noise=0.02, dtype=np.float64

@@ -13,7 +13,8 @@ from obvi_slam_tpu.frontend.roshan_frontend import (
 )
 from obvi_slam_tpu.pose_graph import PoseGraph
 
-from test_bb_frontend import make_object_session, object_config
+from obvi_slam_tpu.synthetic import make_object_session
+from test_bb_frontend import object_config
 
 
 class TestHistograms:

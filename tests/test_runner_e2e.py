@@ -1,6 +1,6 @@
 """End-to-end runner tests: full per-frame loop (frontend gating, sliding
 window, two-phase outlier rejection, global BA, final refinement) on a
-synthetic stereo session, driven by the reference's own config files."""
+synthetic stereo session, driven by the in-repo session config."""
 
 import dataclasses
 
@@ -13,9 +13,6 @@ from obvi_slam_tpu.frontend import VisualFeatureFrontend
 from obvi_slam_tpu.offline_data import OfflineProblemData, RawBoundingBox
 from obvi_slam_tpu.pose_graph import CameraInfo, PoseGraph
 from obvi_slam_tpu.runner import OfflineProblemRunner, provide_optimization_window
-
-REF_CONFIG = "/root/reference/config/base7a_1_fallback_a_2.json"
-
 
 def make_session(n_frames=12, n_features=40, noise_px=0.5, odom_noise=0.01, seed=9):
     """Synthetic stereo session: forward motion, random landmarks, exact
@@ -97,7 +94,7 @@ def make_session(n_frames=12, n_features=40, noise_px=0.5, odom_noise=0.01, seed
 
 
 def small_config():
-    c = cfg.read_config(REF_CONFIG)
+    c = cfg.object_session_config(pgo=False)
     # Shrink for the synthetic session: window 6, global BA every 5 frames,
     # no PGO (tested separately), loose min-obs thresholds for the small scene.
     c.sliding_window_params.local_ba_window_size = 6
@@ -219,7 +216,7 @@ class TestShardedRunner:
 
     def test_fused_solver_runner_converges(self):
         """The runner's fused-solver path (lax.while_loop LM, one dispatch
-        per solve — the TPU deployment default) must reach the same quality
+        per solve — the accelerator deployment default) must reach the same quality
         as the host-loop path on the same session."""
         data, gt_poses, _ = make_session(n_frames=8, n_features=30)
         config = small_config()
@@ -256,7 +253,7 @@ class TestShardedRunner:
 
     def test_sharded_fused_matches_single_fused(self):
         """The FUSED trust-region loop (lm_fused.solve_fused — the code path
-        TPU deployments actually run) executed on an 8-device mesh must match
+        GPU deployments actually run) executed on an 8-device mesh must match
         the single-device fused run: the while_loop body is the same numeric
         program with XLA-inserted psums over the factor axis."""
         import jax

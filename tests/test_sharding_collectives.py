@@ -1,4 +1,4 @@
-"""Collective structure of the sharded global-BA step (VERDICT r3 #5).
+"""Collective structure of the sharded global-BA step.
 
 Compiles the factor-sharded banded step on the 8-device CPU mesh and pins
 the collective pattern: the H/b accumulation AND the partial landmark grams
@@ -78,9 +78,8 @@ class TestShardedCollectives:
 class TestTrajectoryDomainDecomposition:
     """r5: the multi-host band-solve path (band_solve.dd_woodbury_band_solve
     — contiguous tile runs per device, interface Schur system + Woodbury C
-    as the only cross-device combines). SCALING_r04 found the replicated CR
-    path all-gathered 33.8 MB/iter at the 1,024-pose tier; the decomposed
-    path must (a) match the single-device step numerically and (b) not
+    as the only cross-device combines). The replicated CR path all-gathers
+    every level batch each iteration; the decomposed path must (a) match the single-device step numerically and (b) not
     reintroduce tile-batch all-gathers."""
 
     @pytest.fixture(scope="class")
@@ -147,9 +146,8 @@ class TestTrajectoryDomainDecomposition:
         volume must stay within the DD design budget: the interface Schur
         system ((h, 384, 384) x2), the interface multi-RHS ((h, 384,
         1+rz)), and small change — NOT the replicated CR path's tile-batch
-        level all-gathers (33.8 MB/iter in SCALING_r04) nor the
-        partitioner's scatter-index gathers (54 MB/iter before the
-        deferred in-body assembly)."""
+        level all-gathers nor the partitioner's scatter-index gathers
+        (which the deferred in-body assembly removed)."""
         from obvi_slam_tpu.parallel.audit import collect_collectives
 
         mesh = par.make_mesh()
@@ -163,7 +161,7 @@ class TestTrajectoryDomainDecomposition:
         assert plan.pt_band_local_pose is not None
         radius = jnp.asarray(1e4, jnp.float32)
         step = par.sharded_compute_step(mesh)
-        # Lower under x64-OFF (production TPU semantics): the conftest's
+        # Lower under x64-OFF (production device semantics): the conftest's
         # x64 mode changes the partitioner's choices (verified with
         # tools/dd_hlo_probe.py both ways).
         with jax.enable_x64(False):

@@ -221,7 +221,7 @@ class TestLtmPrior:
 
 
 class TestSlotLayout:
-    """The per-landmark slot grid behind the MXU one-hot Schur assembly."""
+    """The per-landmark slot grid behind the one-hot Schur assembly."""
 
     def test_slot_layout_roundtrip(self):
         from obvi_slam_tpu.solver.schur import _slot_layout

@@ -153,7 +153,7 @@ class TestTumMinimumSlice:
 
     @pytest.mark.slow
     def test_sliding_window_ba_on_real_data_f32(self, tum_session):
-        """f32 (the TPU deployment dtype) end-to-end on the same real data
+        """f32 (the device deployment dtype) end-to-end on the same real data
         must meet the SAME ATE bounds as the f64 run — SURVEY hard part #5
         (mixed precision validated on ATE, not just per-step deviation)."""
         data, gt_poses = tum_session

@@ -19,7 +19,7 @@ from obvi_slam_tpu.solver.problem import (
     reweight_for_exclusions,
 )
 
-from test_bb_frontend import make_object_session
+from obvi_slam_tpu.synthetic import make_object_session
 from test_runner_e2e import small_config
 
 

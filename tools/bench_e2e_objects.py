@@ -1,95 +1,60 @@
-"""Object-pipeline end-to-end bench: the FULL ObVi-SLAM workload — visual
+"""Object-pipeline end-to-end run: the FULL ObVi-SLAM workload — visual
 frontend, bounding-box frontend (associate->init->merge + pending mini-BA),
 joint BA with objects, two-phase outlier rejection, PGO-plus-ellipsoids on
 global-BA frames, post-session merge loop, LTM extraction — via the main CLI
-(cli/offline_object_visual_slam_main.py), i.e. the reference workload of
-``offline_object_visual_slam_main.cpp:659-1106``.
+(cli/offline_object_visual_slam_main.py) called in this process, i.e. the
+reference workload of ``offline_object_visual_slam_main.cpp:659-1106``.
 
-Scene: synthetic object session (tests/test_bb_frontend.make_object_session —
-chairs + surface/background features + projected-ellipsoid bounding boxes).
-Reports frames/s, ATE, object count, and the per-phase table keyed by the
-reference's cumulative-timer names (incl. ``ltm_extraction``).
+Scene: the seeded synthetic object session (``synthetic.make_object_session``
+— chairs + surface/background features + projected-ellipsoid bounding boxes)
+with the in-repo config (``config.object_session_config``). Reports wall
+seconds per repeat, ATE, and the LTM objects matched to ground truth.
 
-Usage: python tools/bench_e2e_objects.py [--frames 30] [--platform cpu]
+Usage: python tools/bench_e2e_objects.py [--frames 30] [--repeat 2]
+       [--platform cpu] [--f64] [--work_dir DIR] [--json_out PATH]
 """
 
 import argparse
 import csv
+import importlib.util
 import json
 import pathlib
-import subprocess
 import sys
+import tempfile
 import time
 
-REPO = pathlib.Path(__file__).parent.parent
+REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
-sys.path.insert(0, str(REPO / "tests"))
 
 
-def write_config(path, pgo=True):
-    """Reference config JSON shrunk for the synthetic session, with the
-    PGO-on-global-BA path ENABLED (the full reference pipeline shape)."""
-    with open("/root/reference/config/base7a_1_fallback_a_2.json") as f:
-        raw = json.load(f)
-    c = raw["config"]
-    c["sliding_window_params"] = {
-        "global_ba_frequency": "7", "local_ba_window_size": "8"
-    }
-    en = c["optimization_factors_enabled_params"]
-    en["use_pose_graph_on_global_ba"] = 1 if pgo else 0
-    en["use_pose_graph_on_final_global_ba"] = 1 if pgo else 0
-    en["use_visual_features_on_global_ba"] = 1
-    en["use_visual_features_on_final_global_ba"] = 1
-    en["min_low_level_feature_observations_per_frame"] = 10
-    en["min_low_level_feature_observations"] = 3
-    en["min_object_observations"] = 3
-    fe = c["bounding_box_front_end_params"]["feature_based_bb_association_params"]
-    fe["min_observations"] = 5
-    fe["min_observations_for_local_est"] = 3
-    fe["min_overlapping_features_for_match"] = 3.0
-    fe["pending_obj_estimator_params"]["solver_params"]["max_num_iterations"] = 30
-    for key in (
-        "local_ba_iteration_params",
-        "global_ba_iteration_params",
-        "final_ba_iteration_params",
-    ):
-        c[key]["phase_one_opt_params"]["max_num_iterations"] = 25
-        c[key]["phase_two_opt_params"]["max_num_iterations"] = 30
-    with open(path, "w") as f:
-        json.dump(raw, f)
-
-
-def main(argv=None):
-    parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--frames", type=int, default=30)
-    parser.add_argument("--platform", default="")
-    parser.add_argument("--json_out", default="")
-    parser.add_argument("--work_dir", default="")
-    parser.add_argument(
-        "--repeat", type=int, default=1,
-        help="run the CLI session N times IN one subprocess (warm jit "
-        "caches after run 1 — the long-lived-deployment number); phases "
-        "reported are from the LAST run",
+def _load_cli_main():
+    spec = importlib.util.spec_from_file_location(
+        "offline_object_visual_slam_main",
+        REPO / "cli" / "offline_object_visual_slam_main.py",
     )
-    args = parser.parse_args(argv)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.main
 
-    import tempfile
 
+def run_object_session(
+    work_dir, n_frames=30, seed=33, repeat=1, extra_argv=(), pgo=True
+):
+    """Export the synthetic session, run the main CLI ``repeat`` times in
+    this process (run 1 cold, later runs with warm jit caches) and score the
+    last run. Raises if any run returns non-zero."""
     import numpy as np
 
-    from test_bb_frontend import make_object_session
-    from test_cli import export_session
+    from obvi_slam_tpu.config import object_session_config, write_config
+    from obvi_slam_tpu.synthetic import export_session, make_object_session
+    from obvi_slam_tpu.timing import TimerRegistry
 
-    out = pathlib.Path(args.work_dir or tempfile.mkdtemp(prefix="e2e_obj_"))
-    out.mkdir(parents=True, exist_ok=True)
-    data, gt_poses, gt_objects = make_object_session(
-        n_frames=args.frames, seed=33
-    )
+    out = pathlib.Path(work_dir)
+    data, gt_poses, gt_objects = make_object_session(n_frames=n_frames, seed=seed)
     export_session(data, gt_poses, out)
-    write_config(out / "config.json")
+    write_config(object_session_config(pgo=pgo), str(out / "config.json"))
     res = out / "results"
-
-    cli_argv = [
+    argv = [
         "--params_config_file", str(out / "config.json"),
         "--intrinsics_file", str(out / "intrinsics.csv"),
         "--extrinsics_file", str(out / "extrinsics.csv"),
@@ -102,44 +67,17 @@ def main(argv=None):
         "--visual_feature_results_file", str(res / "features.csv"),
         "--timing_report_file", str(res / "timing.json"),
         "--logs_directory", str(res / "logs"),
-    ]
-    if args.platform:
-        cli_argv += ["--platform", args.platform]
-    # ONE subprocess running the CLI session --repeat times: run 1 is the
-    # cold-process number, later runs see warm jit caches (the number a
-    # long-lived deployment running sessions back-to-back sees).
-    runner_code = (
-        "import sys, time, json, importlib.util\n"
-        f"sys.path.insert(0, {str(REPO)!r})\n"
-        "from obvi_slam_tpu.timing import TimerRegistry\n"
-        "spec = importlib.util.spec_from_file_location('ovsmain', "
-        f"{str(REPO / 'cli' / 'offline_object_visual_slam_main.py')!r})\n"
-        "m = importlib.util.module_from_spec(spec)\n"
-        "spec.loader.exec_module(m)\n"
-        f"argv = {cli_argv!r}\n"
-        "walls = []\n"
-        f"for rep in range({max(args.repeat, 1)}):\n"
-        "    TimerRegistry.instance().reset()\n"
-        "    t0 = time.perf_counter()\n"
-        "    rc = m.main(argv)\n"
-        "    walls.append(time.perf_counter() - t0)\n"
-        "    assert rc in (0, None), rc\n"
-        "    print(f'repeat {rep}: {walls[-1]:.1f}s', flush=True)\n"
-        "print('WALLS=' + json.dumps(walls))\n"
-    )
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-c", runner_code], capture_output=True, text=True
-    )
-    if proc.returncode != 0:
-        print(proc.stdout[-2000:], file=sys.stderr)
-        print(proc.stderr[-4000:], file=sys.stderr)
-        raise SystemExit(proc.returncode)
-    walls = json.loads(
-        [ln for ln in proc.stdout.splitlines() if ln.startswith("WALLS=")][-1]
-        [len("WALLS="):]
-    )
-    wall = walls[-1]
+        "--opt_log_file", str(res / "opt_log.csv"),
+    ] + list(extra_argv)
+    cli_main = _load_cli_main()
+    walls = []
+    for _ in range(max(repeat, 1)):
+        TimerRegistry.instance().reset()
+        t0 = time.perf_counter()
+        rc = cli_main(argv)
+        walls.append(time.perf_counter() - t0)
+        if rc not in (0, None):
+            raise RuntimeError(f"offline_object_visual_slam_main returned {rc}")
 
     # ATE vs ground truth (translation RMSE after node-id sync).
     est = {}
@@ -156,34 +94,59 @@ def main(argv=None):
     ]
     ate = float(np.sqrt(np.mean(errs))) if errs else float("nan")
     with open(res / "ltm.json") as f:
-        n_ltm = len(json.load(f)["ellipsoids"])
+        ltm_centers = np.array(
+            [e[1][:3] for e in json.load(f)["ellipsoids"].values()]
+        ).reshape(-1, 3)
+    # Distance from each ground-truth object to its nearest LTM ellipsoid.
+    gt_to_ltm = [
+        float(np.min(np.linalg.norm(ltm_centers - g[:3], axis=1)))
+        if len(ltm_centers) else float("inf")
+        for g in gt_objects
+    ]
     with open(res / "timing.json") as f:
         phases = json.load(f)
-
-    record = {
-        "frames": args.frames,
-        "wall_s": wall,
-        "frames_per_s": args.frames / wall,
-        "repeats": [
-            {"wall_s": w, "fps": args.frames / w} for w in walls
-        ],
+    with open(res / "opt_log.csv") as f:
+        solves = list(csv.DictReader(f))
+    return {
+        "frames": n_frames,
+        "walls_s": walls,
+        "fps": [n_frames / w for w in walls],
         "ate_rmse_transl_m": ate,
-        "n_ltm_objects": n_ltm,
-        "n_gt_objects": len(gt_objects),
+        "n_poses_estimated": len(est),
+        "est_transl": {i: est[i].tolist() for i in sorted(est)},
+        "n_ltm_objects": int(len(ltm_centers)),
+        "n_gt_objects": int(len(gt_objects)),
+        "gt_to_ltm_m": gt_to_ltm,
+        "n_solves": len(solves),
+        # A solve that ends below its initial cost took an accepted step.
+        "n_solves_decreasing": sum(
+            float(r["final_cost"]) < float(r["initial_cost"]) for r in solves
+        ),
         "phases": phases,
     }
-    keyphases = {
-        k: phases[k]
-        for k in (
-            "ltm_extraction",
-            "obj_only_pgo_full_process",
-            "global_bundle_adjustment",
-            "local_bundle_adjustment",
-        )
-        if k in phases
-    }
-    print(json.dumps({k: v for k, v in record.items() if k != "phases"}))
-    print("phases:", json.dumps(keyphases))
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--frames", type=int, default=30)
+    parser.add_argument("--seed", type=int, default=33)
+    parser.add_argument("--repeat", type=int, default=1)
+    parser.add_argument("--platform", default="")
+    parser.add_argument("--f64", action="store_true",
+                        help="double-precision solves in the CLI")
+    parser.add_argument("--json_out", default="")
+    parser.add_argument("--work_dir", default="")
+    args = parser.parse_args(argv)
+
+    if args.platform:
+        import jax
+
+        jax.config.update("jax_platforms", args.platform)
+    work = args.work_dir or tempfile.mkdtemp(prefix="e2e_obj_")
+    record = run_object_session(work, args.frames, args.seed, args.repeat,
+                                extra_argv=["--f64"] if args.f64 else [])
+    print(json.dumps({k: v for k, v in record.items()
+                      if k not in ("phases", "est_transl")}))
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(record, f)

@@ -38,8 +38,8 @@ def main(argv=None):
 
     import numpy as np
 
-    from test_bb_frontend import make_object_session
-    from test_cli import export_session, write_small_config
+    from obvi_slam_tpu.synthetic import export_session, make_object_session
+    from test_cli import write_small_config
 
     out = pathlib.Path(args.work_dir or tempfile.mkdtemp(prefix="seq_bench_"))
     out.mkdir(parents=True, exist_ok=True)

@@ -20,11 +20,9 @@ def main(argv=None):
 
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        str(pathlib.Path(__file__).parent.parent / ".jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    from obvi_slam_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     import numpy as np
 
